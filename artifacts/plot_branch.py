@@ -4,7 +4,7 @@ Produces artifacts/branch_diagram.png: two small multiples over the shared
 beta axis — wave speed c(beta) and the leading eigenvalue of the
 equation-free map (with the |lambda| = 1 stability threshold).  Single
 series per panel (titles name them; no legend needed); the two sweep
-precisions are distinguished by categorical slots 1 (fp32 TPU) and 2
+precisions are distinguished by categorical slots 1 (fp32) and 2
 (fp64 CPU), fixed order.
 """
 
@@ -21,7 +21,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 SURFACE = "#fcfcfb"
 TEXT = "#0b0b0b"
 TEXT2 = "#52514e"
-S1 = "#2a78d6"   # categorical slot 1: fp32 TPU sweeps
+S1 = "#2a78d6"   # categorical slot 1: fp32 sweeps
 S2 = "#eb6834"   # categorical slot 2: fp64 CPU sweep
 
 
@@ -66,7 +66,7 @@ def main():
                   loc="left", fontsize=11, color=TEXT)
     ax1.set_ylabel("c", color=TEXT2, fontsize=10, rotation=0, labelpad=12)
     # direct labels (selective), text in ink — marks carry identity
-    ax1.annotate("fp32 TPU sweep", (fp32[len(fp32)//2, 0],
+    ax1.annotate("fp32 sweep", (fp32[len(fp32)//2, 0],
                                     fp32[len(fp32)//2, 1]),
                  xytext=(0, 10), textcoords="offset points",
                  color=TEXT2, fontsize=9)

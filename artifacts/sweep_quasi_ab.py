@@ -1,13 +1,13 @@
 import os, sys, json, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax, jax.numpy as jnp, numpy as np
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, NewtonConfig, make_residual_fn, newton_solve,
     ProblemType)
-from armadillocudalinearinterpolation_tpu.analysis.stability import (
+from armadillocudalinearinterpolation.analysis.stability import (
     compute_eigenvalues, count_unstable)
-from armadillocudalinearinterpolation_tpu.solvers.newton import fd_jacobian
-from armadillocudalinearinterpolation_tpu.utils.cache import (
+from armadillocudalinearinterpolation.solvers.newton import fd_jacobian
+from armadillocudalinearinterpolation.utils.cache import (
     enable_compilation_cache)
 
 enable_compilation_cache()

@@ -1,12 +1,11 @@
 """Deep-tolerance continuation: the reference's production loop at 1e-8.
 
-The reference's commented-out sweep (``/root/reference/Driver.cu:86-114``)
+The reference's commented-out sweep (``Driver.cu:86-114``)
 steps ``beta`` by 0.1, Newton-solves each point to tol 1e-4 in native
 double, and counts unstable eigenvalues.  This example runs the same loop
-at **1e-8** — the precision a TPU has no hardware f64 for — using the
-staged hybrid-precision solver (``solvers/staged.py``): an fp32 fast
+at **1e-8** using the staged hybrid-precision solver (``solvers/staged.py``): an fp32 fast
 Newton, a df64 frozen-schedule-replay Newton (the fused one-sided FD
-stencil, the measured-fastest stage-2 mode), and a frozen-Jacobian
+stencil, the default stage-2 mode), and a frozen-Jacobian
 best-iterate polish.  One ``jit_cache`` serves the whole sweep —
 ``(params, key)`` are traced arguments of every cached program, so step 1
 onward re-traces nothing.
@@ -18,7 +17,7 @@ the exported stage-2 Jacobian.
 
 Run:  python examples/deep_sweep.py [--cpu] [--steps N]
 (CPU: ~60 s for step 0 incl. trace+compile at N=512, then a few seconds
-per warm step.  On a v5e at N=4096 the warm step is ~7 s.)
+per warm step.  ``chip_smoke.py`` times the N=4096 solve on a GPU.)
 """
 
 import sys
@@ -35,11 +34,11 @@ if "--cpu" in sys.argv or jax.default_backend() == "cpu":
 jax.config.update("jax_enable_x64", True)
 
 try:
-    import armadillocudalinearinterpolation_tpu as alt
+    import armadillocudalinearinterpolation as alt
 except ModuleNotFoundError:                      # run from a source checkout
     import pathlib
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-    import armadillocudalinearinterpolation_tpu as alt
+    import armadillocudalinearinterpolation as alt
 
 
 def main() -> int:
@@ -48,7 +47,7 @@ def main() -> int:
         n_steps = int(sys.argv[sys.argv.index("--steps") + 1])
 
     # float64 config: the replay carries f64-grade precision on any
-    # backend (double-float pairs on TPU, native f64 on CPU)
+    # backend (double-float pairs in the replay, native f64 in the oracle)
     cfg = alt.ModelConfig(n_neurons=512, n_real=8, dtype="float64",
                           root_tol=1e-12, max_events=2048)
     key = jax.random.PRNGKey(0)
@@ -66,7 +65,7 @@ def main() -> int:
             return 1
         # stability from the exported stage-2 Jacobian (the reference's
         # pJacobianExternal flow; eig of the 3x3 runs on the host)
-        from armadillocudalinearinterpolation_tpu.analysis.stability import (
+        from armadillocudalinearinterpolation.analysis.stability import (
             count_unstable)
         ev = alt.compute_eigenvalues(None, res.solution,
                                      alt.ProblemType.EQUATION_FREE,

@@ -1,10 +1,10 @@
 """Quickstart: solve, analyze, and continue the event-driven map.
 
-Mirrors the reference driver's flow (``/root/reference/Driver.cu:11-126``:
+Mirrors the reference driver's flow (``Driver.cu:11-126``:
 build the map, smoke-test ``ComputeF``, Newton-solve, check stability,
 sweep the parameter) through this framework's public API.  Runs anywhere —
-on a CPU it uses the fp64 oracle path; on a TPU the same code takes the
-Pallas fast path (``dtype="float32"``) or the df64 staged solver
+on a CPU it uses the fp64 oracle path; on a GPU the same code takes the
+evolve kernel (``dtype="float32"``) or the df64 staged solver
 (``newton_solve_staged``) for deep tolerances.
 
 Run:  python examples/quickstart.py [--cpu]
@@ -16,8 +16,7 @@ import jax
 import jax.numpy as jnp
 
 if "--cpu" in sys.argv or jax.default_backend() == "cpu":
-    # select the CPU platform BEFORE first backend use (on hosts whose
-    # default platform is a TPU plugin, env vars alone don't override)
+    # select the CPU platform BEFORE first backend use
     try:
         jax.config.update("jax_platforms", "cpu")
     except RuntimeError:
@@ -25,11 +24,11 @@ if "--cpu" in sys.argv or jax.default_backend() == "cpu":
 jax.config.update("jax_enable_x64", True)
 
 try:
-    import armadillocudalinearinterpolation_tpu as alt
+    import armadillocudalinearinterpolation as alt
 except ModuleNotFoundError:                      # run from a source checkout
     import pathlib
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-    import armadillocudalinearinterpolation_tpu as alt  # noqa: E402
+    import armadillocudalinearinterpolation as alt  # noqa: E402
 
 # ---------------------------------------------------------------- setup --
 # Model constants live in a static, hashable config (replaces the
@@ -62,8 +61,7 @@ print("unstable eigenvalues:", int(n_unstable))
 # -------------------------------------------------- deep-tolerance solve --
 # The staged hybrid-precision recipe (fp32 fast stage -> df64 schedule-
 # replay Newton -> frozen-Jacobian polish) reaches 1e-8-grade tolerances
-# at a fraction of the emulated-f64 cost; on a TPU this is the flagship
-# path (22 s warm at N=4096).  `mesh=` runs the whole recipe sharded.
+# without a native-f64 event loop.  `mesh=` runs the whole recipe sharded.
 cache = {}
 deep = alt.newton_solve_staged(cfg, params, key, Z0, tolerance=1e-8,
                                jit_cache=cache)
@@ -82,4 +80,4 @@ print(f"sweep step beta=13.1589: converged={bool(step2.converged)} "
 
 # For production sweeps, branch switching, fold / existence-boundary
 # tracking and checkpointing, use the CLI:
-#   python -m armadillocudalinearinterpolation_tpu.cli.driver --help
+#   python -m armadillocudalinearinterpolation.cli.driver --help

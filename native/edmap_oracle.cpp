@@ -2,7 +2,7 @@
 //
 // An independent C++ implementation of the lift -> evolve -> restrict ->
 // reduce pipeline (the role Armadillo's CPU path plays for the reference:
-// /root/reference/EventDrivenMap.cu:154-240), used to validate the JAX
+// EventDrivenMap.cu:154-240), used to validate the JAX
 // paths to 1e-10 and as a fast host-side reference for tests.  Unlike the
 // lockstep vmapped JAX ensemble, realisations here run truly independently
 // (and in parallel across a thread pool), which also cross-checks that the
@@ -11,7 +11,7 @@
 // Deliberately dependency-free (no Armadillo/LAPACK): dense solves at
 // n_spikes scale are a tiny Gaussian elimination.
 //
-// C ABI at the bottom; Python binds via ctypes (armadillocudalinearinterpolation_tpu/oracle.py).
+// C ABI at the bottom; Python binds via ctypes (armadillocudalinearinterpolation/oracle.py).
 
 #include <cmath>
 #include <cstdint>

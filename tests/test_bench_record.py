@@ -1,6 +1,5 @@
-"""The bench's incremental-emission record (bench.py) — the round-record
-machinery VERDICT r3 #1 asked for.  A driver timeout may kill bench.py at
-any instant, so the guarantees under test are: every stage re-prints a
+"""The bench's incremental-emission record (bench.py).  A timeout may kill
+bench.py at any instant, so the guarantees under test are: every stage re-prints a
 complete cumulative JSON line on stdout; a failing stage degrades to an
 error key without stopping later stages; budget-exhausted optional stages
 skip with a recorded reason while judged stages still run; NaN values
@@ -61,8 +60,8 @@ def test_nan_serialises_as_null(bench, capsys):
 
 
 def test_json_safe_is_recursive(bench, capsys):
-    """Nested non-finite values (tunnel probes, cold-start breakdown,
-    spread pairs are nested dicts/lists) must serialise as null too."""
+    """Nested non-finite values (device record, cold-start breakdown and
+    other nested dicts/lists) must serialise as null too."""
     rec = bench._Record()
     rec.extras["probe"] = {"rtt_ms": float("nan"), "ok": 1.5}
     rec.extras["spread"] = [1.0, float("inf")]

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 import numpy as np
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     NewtonConfig, track_existence_boundary)
 
 
@@ -22,7 +22,7 @@ def test_bracket_probe_lands_on_the_failure_side(cfg, key):
     and the signed offset lives in ds alone; signing both used to cancel,
     so a direction=-1 probe converged at beta* + tol (the interior side of
     a lower boundary) instead of beta* - tol."""
-    from armadillocudalinearinterpolation_tpu.analysis.boundary import (
+    from armadillocudalinearinterpolation.analysis.boundary import (
         _make_bracket_step, _verify_bracket)
     ncfg = NewtonConfig(tolerance=1e-9, max_iterations=12, fd_mode="exact")
     step = _make_bracket_step(cfg, key, ncfg, "xla")

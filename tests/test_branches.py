@@ -1,7 +1,7 @@
 """Branch-switching enumeration (analysis/branches.py).
 
 The reference has no branch enumeration at all (its single sweep is
-commented out, ``/root/reference/Driver.cu:86-114``); these tests pin the
+commented out, ``Driver.cu:86-114``); these tests pin the
 worklist mechanics — guarded walks from both seed directions, diagram-plane
 deduplication, and discovery-probe gating — on the CPU fp64 oracle path at
 small scale.
@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     NewtonConfig, enumerate_branches)
-from armadillocudalinearinterpolation_tpu.analysis.branches import is_known
+from armadillocudalinearinterpolation.analysis.branches import is_known
 
 
 # converged fixed point at N=512 (see conftest z_ref / verify drive)

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu.cli.driver import main, build_parser
-from armadillocudalinearinterpolation_tpu.utils.checkpoint import (
+from armadillocudalinearinterpolation.cli.driver import main, build_parser
+from armadillocudalinearinterpolation.utils.checkpoint import (
     ContinuationCheckpoint, ContinuationStep)
-from armadillocudalinearinterpolation_tpu.utils.debug import (
+from armadillocudalinearinterpolation.utils.debug import (
     dump_map_stages, STAGES)
 
 
@@ -132,7 +132,7 @@ def test_debug_dump_stages(tmp_path, cfg, params, key, z_ref):
     assert host["coupling"].shape == (cfg.n_neurons,)
     assert host["averaged"].shape == (cfg.n_spikes,)
     # residual in the dump equals a direct evaluation (same key)
-    from armadillocudalinearinterpolation_tpu import event_driven_map
+    from armadillocudalinearinterpolation import event_driven_map
     f = np.asarray(event_driven_map(cfg, params, key, z_ref))
     np.testing.assert_allclose(host["residual"], f, atol=1e-12)
 
@@ -154,7 +154,7 @@ def test_checkpoint_tolerates_truncated_tail(tmp_path):
     """A crash mid-append leaves one truncated final line; load_all skips it
     (the step wasn't durably recorded) instead of bricking --resume."""
     import warnings
-    from armadillocudalinearinterpolation_tpu.utils.checkpoint import (
+    from armadillocudalinearinterpolation.utils.checkpoint import (
         ContinuationCheckpoint, ContinuationStep)
     ck = ContinuationCheckpoint(tmp_path / "c")
     ck.save(ContinuationStep(index=0, beta=13.0, solution=np.zeros(3),
@@ -246,7 +246,7 @@ def test_predicted_retry_needed_covers_soft_failures():
     step and diverge from Driver.cu:107-109 behavior)."""
     from types import SimpleNamespace
 
-    from armadillocudalinearinterpolation_tpu.cli.driver import (
+    from armadillocudalinearinterpolation.cli.driver import (
         predicted_retry_needed)
 
     ok = SimpleNamespace(converged=True, solution=np.array([1.0, 2.0]))
@@ -261,3 +261,55 @@ def test_predicted_retry_needed_covers_soft_failures():
     assert predicted_retry_needed(soft)
     assert predicted_retry_needed(hard)
     assert predicted_retry_needed(weird)
+
+
+def test_cache_honours_jax_compilation_cache_dir(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is the cache and
+    no other is set in code."""
+    from armadillocudalinearinterpolation.utils import cache
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cc"))
+    assert cache.enable_compilation_cache() == str(tmp_path / "cc")
+    assert (tmp_path / "cc").is_dir()
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_cache_defaults_to_repo_dir(monkeypatch):
+    from armadillocudalinearinterpolation.utils import cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    got = cache.enable_compilation_cache()
+    assert got == str(cache._DEFAULT_DIR)
+    assert cache._DEFAULT_DIR.name == ".jax_cache"
+    assert jax.config.jax_compilation_cache_dir == got
+
+
+@pytest.mark.parametrize("argv", [
+    ["--evolve-backend", "replay"],
+    ["--fd-mode", "frozen"],
+    ["--fd-mode", "frozen-fwd", "--arclength"],
+    ["--staged", "--dtype", "float64", "--stage2-fd", "frozen"],
+])
+def test_cli_refuses_replay_on_gpu(monkeypatch, capsys, argv):
+    """Options that run the df64 replay stop with rc 2 and a reason on a
+    GPU backend, before any map evaluation."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    rc = main(argv + ["--quiet"])
+    captured = capsys.readouterr()
+    assert rc == 2
+    assert "GPU" in captured.err
+    assert "smoke test" not in captured.out
+
+
+def test_cli_default_fd_eps_follows_grid(capsys):
+    """Without --fd-eps the FD step is dx/8, below the grid spacing at any
+    N, so the staircase warning (which the old default 1e-2 set off at
+    N=1024) stays quiet, and --staged reports nothing ignored."""
+    assert build_parser().parse_args([]).fd_eps is None
+    rc = main(["--neurons", "1024", "--realisations", "2", "--tol", "1e-3",
+               "--max-iter", "3", "--quiet"])
+    err = capsys.readouterr().err
+    assert rc in (0, 1)
+    assert "grid spacing" not in err
+    rc = main(["--neurons", "1024", "--realisations", "2", "--tol", "1e-3",
+               "--max-iter", "3", "--quiet", "--fd-eps", "1e-2"])
+    assert "grid spacing" in capsys.readouterr().err

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import ModelConfig, NewtonConfig
-from armadillocudalinearinterpolation_tpu.analysis.continuation import (
+from armadillocudalinearinterpolation import ModelConfig, NewtonConfig
+from armadillocudalinearinterpolation.analysis.continuation import (
     continue_branch, initial_tangent, next_tangent, make_extended_residual,
     arclength_step)
 
@@ -62,7 +62,7 @@ def test_arclength_step_rejects_then_shrinks(cfg, key):
 
 
 def test_cli_arclength(capsys, tmp_path):
-    from armadillocudalinearinterpolation_tpu.cli.driver import main
+    from armadillocudalinearinterpolation.cli.driver import main
     # no --quiet: per-step progress lines are the thing being asserted
     # (the --quiet contract suppresses them, uniformly across walkers)
     rc = main(["--neurons", "512", "--realisations", "4",
@@ -74,7 +74,7 @@ def test_cli_arclength(capsys, tmp_path):
     out = capsys.readouterr().out
     assert rc == 0
     assert "arc step 0" in out and "arc step 1" in out
-    from armadillocudalinearinterpolation_tpu.utils.checkpoint import (
+    from armadillocudalinearinterpolation.utils.checkpoint import (
         ContinuationCheckpoint)
     steps = ContinuationCheckpoint(tmp_path / "arc").load_all()
     assert len(steps) == 2 and steps[-1].beta > 13.0589
@@ -84,7 +84,7 @@ def test_arclength_in_sigma(cfg, key):
     """Continuation in the heterogeneity std-dev (the reference's
     commented-out experiment direction, Driver.cu:76-84): walk sigma up
     from the homogeneous fixed point at fixed beta."""
-    from armadillocudalinearinterpolation_tpu.analysis.continuation import (
+    from armadillocudalinearinterpolation.analysis.continuation import (
         continue_branch)
     Z0 = jnp.array([0.32623663, 0.71936722, 1.36899475], jnp.float64)
     steps = continue_branch(cfg, key, Z0, 13.0589, sigma=0.0, param="sigma",
@@ -153,7 +153,7 @@ def test_arclength_frozen_corrector_matches_exact(cfg, key):
 def test_generic_solvers_reject_frozen_mode():
     """fd_mode="frozen" must fail loudly in the generic solvers instead of
     silently taking the forward-FD branch."""
-    from armadillocudalinearinterpolation_tpu import (newton_solve,
+    from armadillocudalinearinterpolation import (newton_solve,
                                                       newton_solve_host)
     F = lambda x: x * x - 2.0
     ncfg = NewtonConfig(tolerance=1e-9, max_iterations=5, fd_mode="frozen")

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu.utils import df64 as D
+from armadillocudalinearinterpolation.utils import df64 as D
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from armadillocudalinearinterpolation_tpu import ModelConfig, MapParams
-from armadillocudalinearinterpolation_tpu.model import emap as _emap
+from armadillocudalinearinterpolation import ModelConfig, MapParams
+from armadillocudalinearinterpolation.model import emap as _emap
 
 
 def _both(cfg0, cfgw, params, key, Z):
@@ -59,14 +59,14 @@ def test_batched_window_fallback_stays_exact(key):
     """A window too small for the spike spread forces the certificate's
     full-evaluation fallback — results must STILL match the vmapped path
     exactly (the window is a performance knob, never a semantics knob)."""
-    from armadillocudalinearinterpolation_tpu.model.coupling import (
+    from armadillocudalinearinterpolation.model.coupling import (
         coupling_kernel)
-    from armadillocudalinearinterpolation_tpu.model.evolve import (
+    from armadillocudalinearinterpolation.model.evolve import (
         evolve_ensemble)
-    from armadillocudalinearinterpolation_tpu.model.evolve_batched import (
+    from armadillocudalinearinterpolation.model.evolve_batched import (
         evolve_ensemble_batched)
-    from armadillocudalinearinterpolation_tpu.model.lift import lift
-    from armadillocudalinearinterpolation_tpu.model import emap as _emap
+    from armadillocudalinearinterpolation.model.lift import lift
+    from armadillocudalinearinterpolation.model import emap as _emap
 
     cfg = ModelConfig(n_neurons=512, n_real=4, dtype="float64",
                       evolve_window=128)

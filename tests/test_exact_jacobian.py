@@ -7,16 +7,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, NewtonConfig, make_residual_fn,
     newton_solve, newton_solve_host)
-from armadillocudalinearinterpolation_tpu.model import emap as _emap
-from armadillocudalinearinterpolation_tpu.model.events import (
+from armadillocudalinearinterpolation.model import emap as _emap
+from armadillocudalinearinterpolation.model.events import (
     event_time, fire_decision, membrane_fun)
-from armadillocudalinearinterpolation_tpu.model.lift import lift
-from armadillocudalinearinterpolation_tpu.solvers.newton import (
+from armadillocudalinearinterpolation.model.lift import lift
+from armadillocudalinearinterpolation.solvers.newton import (
     central_fd_jacobian)
-from armadillocudalinearinterpolation_tpu.solvers.linalg import solve_dense
+from armadillocudalinearinterpolation.solvers.linalg import solve_dense
 
 
 @pytest.fixture(scope="module")
@@ -142,7 +142,7 @@ def test_solve_dense_matches_numpy():
 
 
 def test_frozen_jacobian_polish_quadratic():
-    from armadillocudalinearinterpolation_tpu import frozen_jacobian_polish
+    from armadillocudalinearinterpolation import frozen_jacobian_polish
     F = lambda x: x * x - jnp.array([4.0, 9.0])
     x0 = jnp.array([2.1, 3.1])
     J = jax.jacfwd(F)(x0)
@@ -156,7 +156,7 @@ def test_frozen_jacobian_polish_quadratic():
 
 
 def test_frozen_jacobian_polish_keeps_best_on_noisy_residual():
-    from armadillocudalinearinterpolation_tpu import frozen_jacobian_polish
+    from armadillocudalinearinterpolation import frozen_jacobian_polish
     # a residual with a hard floor: the second component is never zero,
     # and jumps discontinuously — |F| >= 0.04 everywhere
     def F(x):

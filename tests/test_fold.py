@@ -10,9 +10,9 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, NewtonConfig, make_residual_fn, solve_fold)
-from armadillocudalinearinterpolation_tpu.analysis.fold import null_direction
+from armadillocudalinearinterpolation.analysis.fold import null_direction
 
 
 @pytest.mark.slow

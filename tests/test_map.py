@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, event_driven_map, make_residual_fn)
 
 
@@ -28,7 +28,7 @@ def test_map_deterministic_with_fixed_key(cfg, key, z_ref):
 
 
 def test_fp32_path_agrees_with_fp64_oracle(params, key, z_ref):
-    """fp32 TPU fast path vs fp64 oracle (SURVEY.md §7 hard-part 3)."""
+    """fp32 fast path vs fp64 oracle (SURVEY.md §7 hard-part 3)."""
     cfg64 = ModelConfig(n_neurons=512, n_real=2, dtype="float64")
     cfg32 = ModelConfig(n_neurons=512, n_real=2, dtype="float32")
     p32 = MapParams.create(13.0589, 0.0, dtype="float32")

@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, coupling_kernel, mexican_hat, lift,
     initial_spike_indices, event_time, evolve, evolve_ensemble,
     restrict_positions, masked_ensemble_mean, z_to_u, u_to_z,
 )
-from armadillocudalinearinterpolation_tpu.model.coupling import coupling_row
-from armadillocudalinearinterpolation_tpu.model.events import (
+from armadillocudalinearinterpolation.model.coupling import coupling_row
+from armadillocudalinearinterpolation.model.events import (
     membrane_fun, fire_decision)
-from armadillocudalinearinterpolation_tpu.model.evolve import EvolveResult
+from armadillocudalinearinterpolation.model.evolve import EvolveResult
 
 
 # ---------------------------------------------------------------- coupling
@@ -110,7 +110,7 @@ def test_event_time_sentinel_for_nonfiring(cfg):
 
 @pytest.fixture(scope="module")
 def evolved(cfg, params, z_ref, key):
-    from armadillocudalinearinterpolation_tpu.model.emap import sample_beta
+    from armadillocudalinearinterpolation.model.emap import sample_beta
     U = z_to_u(z_ref)
     v0, s0 = lift(cfg, params, U)
     w = coupling_kernel(cfg)
@@ -185,7 +185,7 @@ def test_pipeline_generalizes_over_n_spikes(key):
     """The whole pipeline is generic in n_spikes (the reference hardcodes
     noSpikes=3 at compile time, parameters.hpp:12): shapes and finiteness
     for M=2 and M=5."""
-    from armadillocudalinearinterpolation_tpu import (
+    from armadillocudalinearinterpolation import (
         ModelConfig, MapParams, event_driven_map)
     for m, guess in [(2, [0.33, 0.7]), (5, [0.33, 0.5, 1.0, 1.5, 2.0])]:
         cfg = ModelConfig(n_neurons=512, n_real=2, n_spikes=m,

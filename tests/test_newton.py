@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     NewtonConfig, newton_solve, make_residual_fn)
-from armadillocudalinearinterpolation_tpu.solvers.newton import fd_jacobian
-from armadillocudalinearinterpolation_tpu.solvers.criterion import (
+from armadillocudalinearinterpolation.solvers.newton import fd_jacobian
+from armadillocudalinearinterpolation.solvers.criterion import (
     residual_norm_criterion, relative_criterion)
 
 
@@ -97,7 +97,7 @@ def test_newton_converges_on_event_driven_map(cfg, params, key, z_ref):
 
 
 def test_central_fd_jacobian_matches_analytic():
-    from armadillocudalinearinterpolation_tpu.solvers.newton import (
+    from armadillocudalinearinterpolation.solvers.newton import (
         central_fd_jacobian)
     x = jnp.array([1.5, -2.0, 0.5])
     F = lambda u: jnp.array([u[0] * u[1], jnp.sin(u[2]), u[0] + u[2] ** 2])
@@ -121,7 +121,7 @@ def test_divergence_cutoff_stops_runaway():
     (inf) preserves the reference's run-to-max_iterations behavior."""
     import jax
 
-    from armadillocudalinearinterpolation_tpu import (NewtonConfig,
+    from armadillocudalinearinterpolation import (NewtonConfig,
                                                       newton_solve)
 
     def F(x):  # x^2 + 1 = 0: no real root; Newton runs away fast
@@ -145,9 +145,9 @@ def test_host_solver_F_args_threading():
     DIFFERENT parameters through the same jit_cache must each solve their
     own problem (closed-over params would bake step 0's values into the
     cached jaxpr as constants)."""
-    from armadillocudalinearinterpolation_tpu import (NewtonConfig,
+    from armadillocudalinearinterpolation import (NewtonConfig,
                                                       newton_solve_host)
-    from armadillocudalinearinterpolation_tpu.solvers.newton import (
+    from armadillocudalinearinterpolation.solvers.newton import (
         frozen_jacobian_polish)
 
     def F(x, a):  # root at x = sqrt(a), component-wise
@@ -176,7 +176,7 @@ def test_host_solver_F_args_threading():
 def test_host_solver_F_args_fd_modes():
     """F_args threading through the finite-difference Jacobian paths
     (batched central, batched forward, and serial_fd), sharing one cache."""
-    from armadillocudalinearinterpolation_tpu import (NewtonConfig,
+    from armadillocudalinearinterpolation import (NewtonConfig,
                                                       newton_solve_host)
 
     def F(x, a):
@@ -201,7 +201,7 @@ def test_warm_start_jacobian_quasi_mode(cfg, params, key, z_ref):
     same root as the plain iteration, testing convergence on the true
     residual.  (The on-chip sweep A/B rejected it for the judged sweep —
     see the docstring — but the API contract stands.)"""
-    from armadillocudalinearinterpolation_tpu import (
+    from armadillocudalinearinterpolation import (
         make_residual_fn, newton_solve, NewtonConfig, MapParams)
 
     ncfg = NewtonConfig(tolerance=1e-9, max_iterations=20, fd_epsilon=1e-7)

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, NewtonConfig, event_driven_map,
     make_residual_fn, newton_solve)
 
@@ -21,7 +21,7 @@ pytestmark = pytest.mark.skipif(
     shutil.which("make") is None or shutil.which("g++") is None,
     reason="native toolchain unavailable")
 
-from armadillocudalinearinterpolation_tpu import oracle  # noqa: E402
+from armadillocudalinearinterpolation import oracle  # noqa: E402
 
 
 def test_oracle_matches_jax_residual(cfg, params, key, z_ref):
@@ -34,7 +34,7 @@ def test_oracle_matches_jax_residual(cfg, params, key, z_ref):
 def test_oracle_diagnostics_match(cfg, params, key, z_ref):
     """Per-stage agreement: restricted positions and accept flags."""
     import ctypes
-    from armadillocudalinearinterpolation_tpu.oracle import _load, _params
+    from armadillocudalinearinterpolation.oracle import _load, _params
     lib = _load()
     p = _params(cfg, params, 0)
     Z = np.ascontiguousarray(np.asarray(z_ref), np.float64)

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import armadillocudalinearinterpolation_tpu as alt
-from armadillocudalinearinterpolation_tpu.model import lift as liftm
-from armadillocudalinearinterpolation_tpu.model import replay
-from armadillocudalinearinterpolation_tpu.model.emap import (
+import armadillocudalinearinterpolation as alt
+from armadillocudalinearinterpolation.model import lift as liftm
+from armadillocudalinearinterpolation.model import replay
+from armadillocudalinearinterpolation.model.emap import (
     event_driven_map, make_residual_fn, sample_beta, z_to_u)
-from armadillocudalinearinterpolation_tpu.model.evolve_batched import (
+from armadillocudalinearinterpolation.model.evolve_batched import (
     evolve_ensemble_batched)
 
 Z64 = jnp.array([0.3310, 0.6914, 1.3557], jnp.float64)
@@ -201,9 +201,9 @@ def test_separable_kick_tables_match_direct(cfg):
     """The separable A_i B_j kick factorisation must reproduce the direct
     per-event df64 exponential to pair precision for every firing lane —
     including the wrap-around (ring-minimum) side and the self-kick i = j."""
-    from armadillocudalinearinterpolation_tpu.model.replay import (
+    from armadillocudalinearinterpolation.model.replay import (
         _build_kick_tables, _kick_weight_df, _mexhat_df)
-    from armadillocudalinearinterpolation_tpu.utils import df64 as D
+    from armadillocudalinearinterpolation.utils import df64 as D
 
     N = cfg.n_neurons
     tabs = _build_kick_tables(cfg)
@@ -227,9 +227,9 @@ def test_separable_kick_tables_nonpositive_amplitudes(cfg):
     raise: the tables fold |a| dx and reapply the sign statically (a
     round-3 review fix — the earlier guard hard-failed a2 = 0 configs the
     direct ``_mexhat_df`` path always evolved correctly)."""
-    from armadillocudalinearinterpolation_tpu.model.replay import (
+    from armadillocudalinearinterpolation.model.replay import (
         _build_kick_tables, _kick_weight_df, _mexhat_df)
-    from armadillocudalinearinterpolation_tpu.utils import df64 as D
+    from armadillocudalinearinterpolation.utils import df64 as D
 
     N = cfg.n_neurons
     lane = jnp.arange(N, dtype=jnp.int32)[None, :]
@@ -256,7 +256,7 @@ def test_jacfwd_through_replay_matches_fd(cfg):
     scalar roots, stop_gradient on the schedule pass); central differences
     on the f64 XLA path are the independent check.
     """
-    from armadillocudalinearinterpolation_tpu.solvers.newton import (
+    from armadillocudalinearinterpolation.solvers.newton import (
         central_fd_jacobian)
     params = alt.MapParams.create(13.0589, 0.1, dtype="float64")
     # pin the per-event-branch reference strategy explicitly: the package
@@ -313,11 +313,11 @@ def test_replay_jvp_f32_jacfwd_matches_df64(cfg):
 @pytest.mark.slow
 def test_jacfwd_cols_matches_jacfwd(cfg):
     """jacfwd_cols (sequential jvp columns — the package's exact-mode
-    Jacobian form, ~25x faster than jax.jacfwd's vmapped tangents through
-    the replay loop on TPU) must agree with jax.jacfwd in both tangent
+    Jacobian form, instead of jax.jacfwd's vmapped tangents through the
+    replay loop) must agree with jax.jacfwd in both tangent
     modes: to numerical noise for df64 tangents, to f32-reassociation
     drift over the trajectory (~1e-5 at this scale) for f32 tangents."""
-    from armadillocudalinearinterpolation_tpu.solvers.newton import (
+    from armadillocudalinearinterpolation.solvers.newton import (
         jacfwd_cols)
     params = alt.MapParams.create(13.0589, 0.1, dtype="float64")
     small = cfg.with_(n_neurons=256, max_events=1024)
@@ -371,19 +371,16 @@ def test_newton_converges_on_replay_backend(cfg):
 
 
 def test_pallas_schedule_source_interpret(cfg, pieces):
-    """The Pallas schedule pass (interpret mode off-TPU) must produce a
-    schedule the replay accepts, matching the XLA pass's event counts."""
-    from armadillocudalinearinterpolation_tpu.model import evolve_pallas
+    """The GPU kernel's schedule pass (through the Pallas interpreter here)
+    must produce a schedule the replay accepts, matching the XLA pass's
+    event counts."""
+    from armadillocudalinearinterpolation.model import evolve_pallas
     _, beta, init_ind, v0, s0 = pieces
     cfg32 = cfg.with_(dtype="float32", root_tol=1e-6)
-    old = evolve_pallas._INTERPRET
-    evolve_pallas._INTERPRET = True
-    try:
-        res_p, sched_p = evolve_pallas.evolve_ensemble_pallas(
-            cfg32, v0.astype(jnp.float32), s0.astype(jnp.float32),
-            beta.astype(jnp.float32), init_ind, record_schedule=2048)
-    finally:
-        evolve_pallas._INTERPRET = old
+    res_p, sched_p = evolve_pallas.evolve_ensemble_pallas(
+        cfg32, v0.astype(jnp.float32), s0.astype(jnp.float32),
+        beta.astype(jnp.float32), init_ind, record_schedule=2048,
+        interpret=True)
     res_x, sched_x = evolve_ensemble_batched(
         cfg32, None, v0.astype(jnp.float32), s0.astype(jnp.float32),
         beta.astype(jnp.float32), init_ind, record_schedule=2048)
@@ -427,3 +424,28 @@ def test_replay_loop_scan_matches_while(key):
         outs[loop] = (np.asarray(F(z)), np.asarray(jax.jacfwd(F)(z)))
     np.testing.assert_array_equal(outs["while"][0], outs["scan"][0])
     np.testing.assert_array_equal(outs["while"][1], outs["scan"][1])
+
+
+@pytest.mark.parametrize("route", ["replay_events", "evolve_ensemble_replay",
+                                   "map", "newton_solve_frozen"])
+def test_replay_refused_on_gpu(monkeypatch, cfg, pieces, route):
+    """Every route into the df64 replay fails loudly on a GPU backend (its
+    program takes minutes per evaluation there) instead of hanging."""
+    params, beta, init_ind, v0, s0 = pieces
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    sched = jnp.zeros((cfg.n_real, cfg.max_events), jnp.int32)
+    n_ev = jnp.zeros((cfg.n_real,), jnp.int32)
+    calls = {
+        "replay_events": lambda: replay.replay_events(
+            cfg, sched, n_ev, v0, s0, beta, init_ind),
+        "evolve_ensemble_replay": lambda: replay.evolve_ensemble_replay(
+            cfg, v0, s0, beta, init_ind),
+        "map": lambda: event_driven_map(cfg, params, KEY, Z64,
+                                        evolve_backend="replay"),
+        "newton_solve_frozen": lambda: alt.newton_solve_frozen(
+            cfg, params, KEY, Z64,
+            alt.NewtonConfig(tolerance=1e-6, max_iterations=1,
+                             fd_mode="frozen", fd_epsilon=1e-5)),
+    }
+    with pytest.raises(NotImplementedError, match="GPU"):
+        calls[route]()

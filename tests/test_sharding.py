@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, NewtonConfig, event_driven_map)
-from armadillocudalinearinterpolation_tpu.parallel import (
+from armadillocudalinearinterpolation.parallel import (
     make_mesh, make_sharded_residual_fn, sharded_newton_solve)
-from armadillocudalinearinterpolation_tpu.parallel.sharding import (
+from armadillocudalinearinterpolation.parallel.sharding import (
     event_driven_map_sharded)
 
 

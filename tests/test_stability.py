@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ProblemType, compute_eigenvalues, num_unstable_eigenvalues)
-from armadillocudalinearinterpolation_tpu.analysis.stability import (
+from armadillocudalinearinterpolation.analysis.stability import (
     count_unstable, eigvals)
 
 

@@ -1,8 +1,8 @@
 """Staged hybrid-precision Newton (solvers/staged.py).
 
-On the CPU oracle mesh the fp32 stage runs the windowed batched evolve and
-the accurate stage runs the df64 schedule replay — the same pipeline the
-bench drives on the chip, at a small grid.
+On the CPU the fp32 stage runs the XLA evolve; the accurate stage runs
+native float64 with exact Jacobians by default — the path a GPU takes —
+or, explicitly, the df64 schedule replay with the frozen stencil modes.
 """
 
 import jax
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from armadillocudalinearinterpolation_tpu import (
+from armadillocudalinearinterpolation import (
     ModelConfig, MapParams, NewtonConfig, make_residual_fn, newton_solve,
     newton_solve_frozen, newton_solve_staged)
 
@@ -27,7 +27,7 @@ def test_frozen_batched_matches_single(key):
     branch choice is additionally global over the tiled batch instead of
     per point (~1e-15 per event).  Either is far below the 1e-7-grade
     FD-stencil differences the batched path exists to resolve."""
-    from armadillocudalinearinterpolation_tpu.model.emap import (
+    from armadillocudalinearinterpolation.model.emap import (
         compute_discrete_outcome, frozen_schedule_map,
         frozen_schedule_map_batched)
 
@@ -64,7 +64,7 @@ def test_frozen_fd_matches_jacfwd_and_solves(key):
     ROADMAP-recorded "FD misses the staircase" failure was an eps = 1e-3
     artifact — at that radius probes cross discrete-outcome boundaries.)
     """
-    from armadillocudalinearinterpolation_tpu.model.emap import (
+    from armadillocudalinearinterpolation.model.emap import (
         compute_discrete_outcome, frozen_schedule_map)
 
     cfg = ModelConfig(n_neurons=512, n_real=8, dtype="float64",
@@ -135,7 +135,7 @@ def test_frozen_fwd_stencil(key):
     GENUINE coexisting fast-family root (0.49, 0.58, 11.07) ~10 away from
     the slow-family guess — the staged rescue's basin-distance guard must
     detect the escape and return the slow-family root near the guess."""
-    from armadillocudalinearinterpolation_tpu.model.emap import \
+    from armadillocudalinearinterpolation.model.emap import \
         make_residual_fn as mk
 
     cfg = ModelConfig(n_neurons=512, n_real=8, dtype="float64",
@@ -264,7 +264,8 @@ def test_staged_guards_and_jacobian(key):
     """Round-3 code-review fixes: cache identity is enforced, a 0-iteration
     accurate stage still returns a REAL Jacobian (not the identity
     placeholder — stability analysis eigendecomposes it), and "pallas"
-    resolves to the differentiable replay backend instead of crashing."""
+    resolves to the differentiable native-f64 backend instead of
+    crashing."""
     import pytest
 
     cfg = ModelConfig(n_neurons=512, n_real=8, dtype="float64",
@@ -275,7 +276,7 @@ def test_staged_guards_and_jacobian(key):
     # stage-2 capture tolerance (5e-3), so the accurate stage does 0
     # iterations — the exported Jacobian must be recomputed, not I
     res = newton_solve_staged(cfg, params, key, Z0, tolerance=1e-3,
-                              evolve_backend="pallas",  # -> replay on CPU
+                              evolve_backend="pallas",  # -> native f64
                               jit_cache=cache)
     assert bool(res.converged)
     assert not np.allclose(np.asarray(res.jacobian), np.eye(3), atol=1e-3)
@@ -356,7 +357,7 @@ def test_scored_winner_nan_fill_retries_like_ev():
     NaN-best refresh).  Synthetic 1-D arctan problem: the full Newton step
     from x0=3 overshoots (|F| grows), so halved trials are *scored* and a
     scored trial wins -> the fill path runs; we poison its first call."""
-    from armadillocudalinearinterpolation_tpu.solvers.staged import (
+    from armadillocudalinearinterpolation.solvers.staged import (
         frozen_newton_loop)
 
     dt_ = jnp.float64
@@ -394,12 +395,18 @@ def test_scored_winner_nan_fill_retries_like_ev():
     assert np.isfinite(hist[: int(res.iterations) + 1]).all()
 
 
-def test_staged_aot_warmup_matches_and_prewarms():
+@pytest.mark.parametrize("backend,programs", [
+    ("auto", {"stage1", "F", "J"}),
+    ("replay", {"stage1", "F", "sched", "fused_fwd", "score"}),
+])
+def test_staged_aot_warmup_matches_and_prewarms(backend, programs):
     """staged_aot_warmup must (a) report a trace/compile breakdown for
-    every program of the default frozen-fwd recipe, (b) leave the cache in
-    a state the subsequent newton_solve_staged accepts (same identity) and
-    reuses, and (c) not change the solve's result vs an un-warmed cache."""
-    from armadillocudalinearinterpolation_tpu import staged_aot_warmup
+    every program of the default recipe of each accurate path (native f64
+    with an exact stage 2; the df64 replay with frozen-fwd), (b) leave the
+    cache in a state the subsequent newton_solve_staged accepts (same
+    identity) and reuses, and (c) not change the solve's result vs an
+    un-warmed cache."""
+    from armadillocudalinearinterpolation import staged_aot_warmup
 
     cfg = ModelConfig(n_neurons=256, n_real=8, dtype="float64",
                       root_tol=1e-12, max_events=1024)
@@ -408,29 +415,41 @@ def test_staged_aot_warmup_matches_and_prewarms():
 
     cache = {}
     bd = staged_aot_warmup(cfg, params, key, Z0, tolerance=1e-7,
-                           jit_cache=cache)
-    assert set(bd["programs"]) == {"stage1", "F", "sched", "fused_fwd",
-                                   "score"}
+                           evolve_backend=backend, jit_cache=cache)
+    assert set(bd["programs"]) == programs
     for p in bd["programs"].values():
         assert p["trace_s"] >= 0.0 and p["compile_s"] >= 0.0
     assert bd["compile_wall_s"] <= sum(
         p["compile_s"] for p in bd["programs"].values()) + 1.0
     # the warmed cache must be accepted by the solve (identity match) and
     # the programs must be the SAME objects (cache hits, not rebuilds)
-    progs_before = (cache["stage1"], cache["stage2_cache"]["F"],
-                    cache["stage2_cache"]["sched"],
-                    cache["stage2_cache"]["fused_fwd"])
+    sub_keys = sorted(programs - {"stage1"})
+    progs_before = [cache["stage1"]] + [cache["stage2_cache"][k]
+                                        for k in sub_keys]
     res_w = newton_solve_staged(cfg, params, key, Z0, tolerance=1e-7,
-                                jit_cache=cache)
-    progs_after = (cache["stage1"], cache["stage2_cache"]["F"],
-                   cache["stage2_cache"]["sched"],
-                   cache["stage2_cache"]["fused_fwd"])
+                                evolve_backend=backend, jit_cache=cache)
+    progs_after = [cache["stage1"]] + [cache["stage2_cache"][k]
+                                       for k in sub_keys]
     assert all(a is b for a, b in zip(progs_before, progs_after))
-    res_u = newton_solve_staged(cfg, params, key, Z0, tolerance=1e-7)
+    res_u = newton_solve_staged(cfg, params, key, Z0, tolerance=1e-7,
+                                evolve_backend=backend)
     np.testing.assert_allclose(np.asarray(res_w.solution),
                                np.asarray(res_u.solution), atol=1e-12)
     # a warmup against a DIFFERENT setup must be rejected like any other
     # cache-identity mismatch
     with pytest.raises(ValueError, match="different"):
         staged_aot_warmup(cfg, params, key, Z0, tolerance=1e-9,
-                          jit_cache=cache)
+                          evolve_backend=backend, jit_cache=cache)
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+@pytest.mark.parametrize("requested,want", [
+    ("auto", "xla"), ("pallas", "xla"), ("xla", "xla"),
+    ("replay", "replay")])
+def test_accurate_backend_is_one_path(monkeypatch, platform, requested,
+                                      want):
+    """The accurate stage resolves the same way on every platform: native
+    f64 unless the replay is asked for by name."""
+    from armadillocudalinearinterpolation.model.emap import accurate_backend
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert accurate_backend(requested) == want
